@@ -1,4 +1,4 @@
-"""End-to-end oisat-tpu demo on synthetic data — no input files needed.
+"""End-to-end oisat demo on synthetic data — no input files needed.
 
 Builds one month of synthetic OMI-NO2-like granules plus a synthetic GMI-like
 CTM, then runs the complete analysis pipeline exactly the way ``run/job.py``
@@ -18,8 +18,8 @@ Multi-device (SPMD regrid + sharded month step; works on a virtual CPU mesh):
   XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
       python examples/synthetic_month.py --fused --mesh 8
 
-Runs on whatever JAX backend is visible (CPU works fine; first TPU run pays
-one compile).  Outputs land in ./demo_out/.  For real data, write a
+Runs on whatever JAX backend is visible (CPU works fine; the first run
+pays one compile).  Outputs land in ./demo_out/.  For real data, write a
 ``control.yml`` and use ``run/job.py`` — see docs/MIGRATION.md.
 """
 
@@ -35,9 +35,9 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from oisat_tpu.datamodel import ctm_model, satellite_amf  # noqa: E402
-from oisat_tpu.driver import oisatgmi  # noqa: E402
-from oisat_tpu.regridder import regrid_granule  # noqa: E402
+from oisat.datamodel import ctm_model, satellite_amf  # noqa: E402
+from oisat.driver import oisatgmi  # noqa: E402
+from oisat.regridder import regrid_granule  # noqa: E402
 
 
 def make_ctm(seed=0, nt=8, nz=12):
@@ -80,7 +80,7 @@ def make_granule(seed, day, nz=6):
     eta_a = np.linspace(0.0, 100.0, nz)
     eta_b = np.linspace(1.0, 0.02, nz)
     psurf = 1000.0 + 30.0 * rng.standard_normal((ny, nx))
-    from oisat_tpu.readers.sensors.common import attach_pmid_tables
+    from oisat.readers.sensors.common import attach_pmid_tables
 
     g = satellite_amf(
         vcd=np.abs(rng.normal(3, 1, (ny, nx))),
@@ -118,8 +118,8 @@ def main():
 
     mesh = None
     if args.mesh > 1:
-        from oisat_tpu.parallel.mesh import make_mesh
-        from oisat_tpu.regridder import set_regrid_mesh
+        from oisat.parallel.mesh import make_mesh
+        from oisat.regridder import set_regrid_mesh
 
         mesh = make_mesh(args.mesh)
         set_regrid_mesh(mesh)  # regrid programs run SPMD over the mesh

@@ -1,0 +1,52 @@
+"""SSMIS water-vapor reader (reference oisatgmi/reader.py:1277-1305, fleet :1450-1464)."""
+
+from __future__ import annotations
+
+import datetime
+import glob
+
+import numpy as np
+
+from oisat.datamodel import satellite_ssmis
+from oisat.readers.ncio import read_nc_raw, remove_empty_files
+from oisat.readers.registry import SENSORS
+from oisat.readers.sensors.common import fleet_map
+from oisat.regridder import regrid_ssmis_granule
+
+__all__ = ["ssmis_reader_wv", "ssmis_reader"]
+
+
+def ssmis_reader_wv(fname, ctm_lon=None, ctm_lat=None):
+    """Monthly RSS SSMIS water-vapor L3 (reference reader.py:1277-1305):
+    raw counts x0.3 -> mm, >=75 mm masked, flat 5% error model; month
+    decoded from the filename's ...YYYYMMv7... token."""
+    print("Currently reading: " + fname.split("/")[-1])
+    token = fname.split("v7")[0]
+    time = datetime.datetime(int(token[-6:-2]), int(token[-2:]), 1)
+    # RAW reads (reference _read_ssmi, reader.py:28-34): RSS files store
+    # vapor as counts with flags 250-254; CF auto-scaling would corrupt
+    # the flag mask and double-apply the x0.3
+    lat1 = read_nc_raw(fname, "latitude").astype("float32")
+    lon1 = read_nc_raw(fname, "longitude").astype("float32")
+    lon1 = np.where(lon1 > 180.0, lon1 - 360.0, lon1)
+    lon, lat = np.meshgrid(lon1, lat1)
+    pwv = np.array(read_nc_raw(fname, "atmosphere_water_vapor_content"), np.float64)
+    pwv[pwv > 250.0] = np.nan
+    pwv = pwv * 0.3
+    pwv[(pwv >= 75.0) | np.isinf(pwv)] = np.nan
+    g = satellite_ssmis(vcd=pwv.astype("float32"), uncertainty=(pwv * 0.05).astype("float32"),
+                        time=time, latitude_center=lat, longitude_center=lon,
+                        ctm_upscaled_needed=False, ctm_vcd=[], sensor="SSMI")
+    if ctm_lon is not None:
+        print("Currently interpolating ...")
+        spec = SENSORS["SSMIS_WV"]
+        g = regrid_ssmis_granule(spec.grid_size, g, ctm_lon, ctm_lat)
+    return g
+
+
+def ssmis_reader(product_dir, ctm_lon, ctm_lat, YYYYMM, num_job=1):
+    """SSMIS fleet reader (reference reader.py:1450-1464)."""
+    files = remove_empty_files(sorted(
+        glob.glob(product_dir + "/*" + YYYYMM[0:4] + YYYYMM[4:] + "*.nc")))
+    return fleet_map(lambda f: ssmis_reader_wv(f, ctm_lon, ctm_lat),
+                     files, num_job, "SSMIS_WV")

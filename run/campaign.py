@@ -1,8 +1,8 @@
-"""In-process campaign sweep: run many (year, month) jobs on one chip.
+"""In-process campaign sweep: run many (year, month) jobs on one device.
 
 The reference fans months out as independent SLURM/PBS jobs
-(run/job_submitter_*.py) because each CPU month takes hours; on TPU a month
-is seconds-to-minutes, so a multi-month or multi-year campaign can run as
+(run/job_submitter_*.py) because each CPU month takes hours; on an
+accelerator a month is seconds-to-minutes, so a multi-month or multi-year campaign can run as
 one process with cached compilations (all months share shapes) — the
 'DCN sweep driver' of SURVEY.md §7 step 8.  Month-level fault tolerance
 replaces manual resubmission: a failed month is retried once, then logged
@@ -21,7 +21,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 from job import load_control, read_month, run_month  # noqa: E402
 from job_submitter import month_list  # noqa: E402
 
-from oisat_tpu.utils.profiling import log, report, stage  # noqa: E402
+from oisat.utils.profiling import log, report, stage  # noqa: E402
 
 
 def run_campaign(ctrl, retries: int = 1, prefetch=None):
@@ -29,20 +29,17 @@ def run_campaign(ctrl, retries: int = 1, prefetch=None):
     default on for non-TEMPO sensors) month k+1's ``read_data`` — file IO,
     granule regrid dispatches and their H2D submits — runs in ONE
     background thread while month k's report + nc host tail executes
-    (run_month fires ``prefetch_hook`` AFTER the analysis: overlapping
-    the read with the analysis leg itself measured 0.80x on this 1-core
-    host — see run_month's docstring).  Months are
+    (run_month fires ``prefetch_hook`` AFTER the analysis, see
+    run_month's docstring).  Months are
     independent (the reference fans them out as separate scheduler jobs),
     so the overlap cannot change results; reads never overlap each other
     (at most one prefetch thread), preserving ``num_job`` semantics
     within each read.  A failed prefetch falls back to an inline read on
     the month's own attempt (and its retry path always reads inline).
 
-    Default: ON only on multi-core hosts.  Chip-measured on the 1-core
-    bench host (``bench --campaign``, alternating off/on pairs): median
-    0.836x — the prefetch thread's host-side read/regrid work contends
-    with the report leg's matplotlib CPU time for the one core, so the
-    overlap LOSES there; the control key forces either way."""
+    Default: ON only on multi-core hosts — on a single core the prefetch
+    thread's host-side read/regrid work contends with the report leg's
+    matplotlib CPU time; the control key forces either way."""
     import os
 
     months = month_list(ctrl["start_date"], ctrl["end_date"])
@@ -73,9 +70,8 @@ def run_campaign(ctrl, retries: int = 1, prefetch=None):
                     if attempt > 0 and pending:
                         # the retry reads inline; drain any in-flight
                         # prefetch first so the 'reads never overlap'
-                        # invariant holds on this 1-core host (GIL
-                        # contention between two regrid pipelines
-                        # measured strictly worse in round 3).  Results
+                        # invariant holds (two regrid pipelines contend
+                        # for the GIL).  Results
                         # stay cached in their futures for their months.
                         for f in pending.values():
                             try:
@@ -109,5 +105,8 @@ def run_campaign(ctrl, retries: int = 1, prefetch=None):
 
 
 if __name__ == "__main__":
+    from oisat.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     ctrl = load_control(sys.argv[1] if len(sys.argv) > 1 else "./control.yml")
     sys.exit(1 if run_campaign(ctrl) else 0)

@@ -9,16 +9,14 @@ rest recalculate AMFs), month-end date arithmetic included.
 import sys
 from pathlib import Path
 
-import yaml
-
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from oisat_tpu import oisatgmi  # noqa: E402
+from oisat import oisatgmi  # noqa: E402
+from oisat.control import read_control  # noqa: E402
 
 
 def load_control(path="./control.yml"):
-    with open(path, "r") as stream:
-        return yaml.safe_load(stream)
+    return read_control(path)
 
 
 def fused_eligible(ctrl) -> bool:
@@ -45,7 +43,7 @@ def mesh_from_ctrl(ctrl):
     md = ctrl.get("mesh_devices")
     if not md or md == 1:
         return None
-    from oisat_tpu.parallel.mesh import make_mesh
+    from oisat.parallel.mesh import make_mesh
 
     return make_mesh(None if md == "all" else int(md))
 
@@ -77,7 +75,7 @@ def _month_env_setup(ctrl):
     # themselves run SPMD over the mesh (regridder._sharded_regrid_fn —
     # fine-grid rows sharded, XLA inserts the box-filter halo exchange)
     mesh = mesh_from_ctrl(ctrl)
-    from oisat_tpu.regridder import set_regrid_mesh
+    from oisat.regridder import set_regrid_mesh
 
     set_regrid_mesh(mesh)
     return mesh
@@ -117,10 +115,9 @@ def run_month(ctrl, year: int, month: int, pre_read=None, prefetch_hook=None,
     analysis, before the report/nc host tail — the campaign uses it to
     launch month k+1's read in its prefetch thread.  (Kicking it right
     after the read — overlapping the next read with the analysis leg —
-    measured 0.80x on this 1-core host: the prefetch thread's host work
-    contends for the GIL with the analysis leg's device pulls, the
-    round-3 threading lesson; the post-analysis point measured 1.02x.
-    On a multi-core deployment the earlier kick is the one to revisit.)  ``on_hour``: TEMPO only —
+    lets the prefetch thread's host work contend for the GIL with the
+    analysis leg's device pulls; the earlier kick is open to
+    measurement on a multi-core host.)  ``on_hour``: TEMPO only —
     called with each UTC hour before that hour's sub-pipeline (bench.py's
     compile-census phase marker)."""
     mesh = _month_env_setup(ctrl)
@@ -167,13 +164,13 @@ def run_month(ctrl, year: int, month: int, pre_read=None, prefetch_hook=None,
 def _analyze(obj, ctrl, sensor, gas, start, end, savedaily, mesh=None):
     """Fused-or-staged analysis for one batch of granules (a month, or one
     TEMPO UTC hour).  The fused path runs the observation operator +
-    averaging + bias + OI as ONE device program (oisat_tpu/parallel) under
+    averaging + bias + OI as ONE device program (oisat/parallel) under
     the control-selected mesh; months it can't express (mixed granule
     shapes, no scattering weights) fall back to the staged pipeline."""
     # the full-covariance OI is a first-class control-surface choice
     # (VERDICT r3 item 1): `oi_method: full` selects the distance-decay
     # background covariance + blocked-Cholesky Kalman solve
-    # (oisat_tpu/ops/oi_full), with `length_scale_km` as its scale
+    # (oisat/ops/oi_full), with `length_scale_km` as its scale
     oi_method = ctrl.get("oi_method", "scalar")
     if oi_method not in ("scalar", "full"):
         raise ValueError(f"oi_method must be 'scalar' or 'full', got {oi_method!r}")
@@ -218,11 +215,14 @@ def _analyze(obj, ctrl, sensor, gas, start, end, savedaily, mesh=None):
 if __name__ == "__main__":
     import os
 
+    from oisat.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     ctrl = load_control()
     if os.environ.get("OISAT_COMPILE_CENSUS") == "1":
         # compile-wall accounting: print which stages compiled how many
-        # XLA programs and how long the (remote) compiler took
-        from oisat_tpu.utils.compile_census import CompileCensus
+        # XLA programs and how long the compiler took
+        from oisat.utils.compile_census import CompileCensus
 
         with CompileCensus() as census:
             census.phase(f"{sys.argv[1]}-{sys.argv[2]}")

@@ -11,8 +11,12 @@ from __future__ import annotations
 
 import datetime
 import os
+import sys
+from pathlib import Path
 
-import yaml
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+from oisat.control import read_control  # noqa: E402
 
 
 def month_list(startdate: str, enddate: str):
@@ -97,8 +101,7 @@ def submit(scheduler="sbatch", control="./control.yml", dry_run=False,
     """``reference_months=True`` (the drop-in shims) reproduces the
     reference's cartesian month set; the default is the correct calendar
     sequence (:func:`month_list`)."""
-    with open(control, "r") as stream:
-        ctrl = yaml.safe_load(stream)
+    ctrl = read_control(control)
     os.makedirs("./jobs", exist_ok=True)
     scripts = []
     pick = month_list_reference if reference_months else month_list

@@ -8,7 +8,7 @@ oisatgmi/optimal_interpolation.py:37-43):
 ``kneed`` is not installable in this environment, so this module is a
 line-by-line re-derivation of its published algorithm (Satopaa et al. 2011
 + the kneed source structure), kept deliberately separate from the
-production implementations in :mod:`oisat_tpu.ops.knee`.  It exists only to
+production implementations in :mod:`oisat.ops.knee`.  It exists only to
 *generate* the frozen corpus in ``tests/golden/knee_corpus.json`` (see
 ``tests/make_knee_corpus.py``); the production code is then tested against
 the frozen data, giving three independent implementations that must agree.

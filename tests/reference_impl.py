@@ -1,7 +1,7 @@
 """Independent NumPy golden implementations of the reference pipeline math.
 
 Written from the algorithm definitions (formulas in SURVEY.md / the paper
-trail), using plain float64 NumPy.  These are the truth the TPU ops are
+trail), using plain float64 NumPy.  These are the truth the device ops are
 compared against at tight tolerances; they intentionally mirror the
 *semantics* (NaN handling, clamps, division-by-zero patterns) of
 OI-SAT-GMI, not its code.
@@ -13,7 +13,7 @@ import warnings
 
 import numpy as np
 
-from oisat_tpu.ops.knee import kneedle_index_np
+from oisat.ops.knee import kneedle_index_np
 
 
 def oi_numpy(xa, y, sa, so, regularization_on=True):

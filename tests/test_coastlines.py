@@ -8,7 +8,7 @@ import pytest
 
 
 def test_builtin_coastlines_sane():
-    from oisat_tpu.data import coastline_segments, coastlines_source
+    from oisat.data import coastline_segments, coastlines_source
 
     segs = coastline_segments()
     assert coastlines_source() in ("builtin-approximate", "npz", "env")
@@ -26,7 +26,7 @@ def test_builtin_coastlines_sane():
 def test_builtin_coastlines_hit_known_domains():
     """Every reference analysis domain must get at least some coastline:
     CONUS (TEMPO), Europe, East Asia, and a global grid."""
-    from oisat_tpu.data import coastline_segments
+    from oisat.data import coastline_segments
 
     def count_in(lon0, lon1, lat0, lat1):
         n = 0
@@ -68,7 +68,7 @@ def test_make_coastlines_roundtrip(tmp_path, monkeypatch):
     n = mkc.convert(str(src), str(dst))
     assert n == 2
 
-    import oisat_tpu.data as data
+    import oisat.data as data
 
     monkeypatch.setenv("OISAT_COASTLINES", str(dst))
     monkeypatch.setattr(data, "_cache", {})
@@ -86,7 +86,7 @@ def test_report_panels_have_coastlines(tmp_path):
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 
-    from oisat_tpu.report import plotter, report
+    from oisat.report import plotter, report
 
     # unit check: the panel axes gain Line2D coastline artists
     lon, lat = np.meshgrid(np.arange(-130, -60, 0.5), np.arange(20, 55, 0.5))
@@ -137,13 +137,13 @@ def test_survey_grade_coastlines_pending():
     """CI-visible marker (VERDICT r4 #8): the shipped coastline set is the
     ~600-vertex builtin approximation; the survey-grade npz (Natural Earth
     via tools/make_coastlines.py) needs a network window.  When one
-    exists: run the tool, ship oisat_tpu/data/coastlines.npz, and delete
+    exists: run the tool, ship oisat/data/coastlines.npz, and delete
     this skip."""
     import os
 
     import pytest
 
-    from oisat_tpu import data as _data
+    from oisat import data as _data
 
     npz = os.path.join(os.path.dirname(_data.__file__), "coastlines.npz")
     if not os.path.exists(npz):

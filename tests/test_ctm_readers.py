@@ -6,7 +6,7 @@ import numpy as np
 
 import h5py
 
-from oisat_tpu.readers.ctm import CMAQ_reader, ECCOH_reader, GMI_reader, Hi_GMI_reader
+from oisat.readers.ctm import CMAQ_reader, ECCOH_reader, GMI_reader, Hi_GMI_reader
 
 
 def write_gmi_pair(met_path, gas_path, day, nt=8, nz=6, nlat=10, nlon=12):
@@ -117,7 +117,7 @@ def test_cmaq_reader_rejects_inconsistent_mcip_lists(tmp_path):
     silently average 29/30 granules and divide by 30."""
     import pytest
 
-    from oisat_tpu.readers.ctm import CMAQ_reader
+    from oisat.readers.ctm import CMAQ_reader
 
     (tmp_path / "CCTM_CONC_201907a.nc").write_bytes(b"x" * 200)
     (tmp_path / "METCRO3D_201907a").write_bytes(b"x" * 200)
@@ -130,7 +130,7 @@ def test_cmaq_reader_rejects_inconsistent_mcip_lists(tmp_path):
 def test_ctm_readers_fail_loudly_on_empty_dir(tmp_path):
     import pytest
 
-    from oisat_tpu.readers.ctm import CMAQ_reader, GMI_reader, Hi_GMI_reader
+    from oisat.readers.ctm import CMAQ_reader, GMI_reader, Hi_GMI_reader
 
     with pytest.raises(FileNotFoundError, match="no GMI met"):
         GMI_reader(str(tmp_path), "201907", "NO2")

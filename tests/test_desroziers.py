@@ -5,10 +5,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from oisat_tpu.driver import oisatgmi
-from oisat_tpu.ops.averaging import monthly_stats, monthly_stats_weighted
-from oisat_tpu.ops.diagnostics import desroziers_estimates, innovation_stats
-from oisat_tpu.ops.oi import oi
+from oisat.driver import oisatgmi
+from oisat.ops.averaging import monthly_stats, monthly_stats_weighted
+from oisat.ops.diagnostics import desroziers_estimates, innovation_stats
+from oisat.ops.oi import oi
 
 
 def _misspecified_analysis(factor=4.0, H=64, W=96, seed=0):
@@ -105,8 +105,8 @@ def test_averaging_weighting_modes(tmp_path):
     import datetime
     from types import SimpleNamespace
 
-    from oisat_tpu.datamodel import satellite_amf, satellite_opt
-    from oisat_tpu.ops.averaging import averaging
+    from oisat.datamodel import satellite_amf, satellite_opt
+    from oisat.ops.averaging import averaging
 
     hw = (6, 7)
     t = datetime.datetime(2019, 7, 10)
@@ -180,7 +180,7 @@ def test_inverse_variance_excludes_zero_uncertainty():
     mean (the unweighted parity mode still includes them)."""
     v = np.stack([np.full((3, 3), 2.0), np.full((3, 3), 10.0)])
     e = np.stack([np.full((3, 3), 1.0), np.zeros((3, 3))])  # granule 2: fill
-    from oisat_tpu.ops.averaging import _granule_weights
+    from oisat.ops.averaging import _granule_weights
     from types import SimpleNamespace
 
     sel = [SimpleNamespace(uncertainty=e[0]), SimpleNamespace(uncertainty=e[1])]
@@ -212,7 +212,7 @@ def test_binned_desroziers_recovers_spatial_contrast():
     (d_oa = (1-K) d_ob cell-by-cell) — what the bins recover is the
     spatial structure of the TOTAL error (per-band sa+so = per-band
     innovation variance, per-band chi^2 -> 1)."""
-    from oisat_tpu.ops.diagnostics import desroziers_binned, lat_band_index
+    from oisat.ops.diagnostics import desroziers_binned, lat_band_index
 
     xa, y, sa, so, lat = _north_south_analysis()
     bins = lat_band_index(lat, 2)
@@ -284,7 +284,7 @@ def test_binned_scale_maps_persist_to_diag(tmp_path):
     import datetime
     from types import SimpleNamespace
 
-    from oisat_tpu.ncwriter import read_diag_nc
+    from oisat.ncwriter import read_diag_nc
 
     xa, y, sa, so, lat = _north_south_analysis()
     obj = oisatgmi()

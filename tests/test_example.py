@@ -21,7 +21,7 @@ def test_synthetic_month_example(tmp_path, monkeypatch):
     assert (out / "OI_report_NO2_201907_demo.pdf").exists()
     mats = list((out / "daily").glob("sat_data_NO2_*.mat"))
     assert len(mats) == 2
-    from oisat_tpu.ncwriter import read_diag_nc
+    from oisat.ncwriter import read_diag_nc
 
     fields, tstr = read_diag_nc(out / "demo_201907.nc")
     assert tstr.startswith("2019-07")

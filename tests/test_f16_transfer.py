@@ -17,8 +17,8 @@ import warnings
 import numpy as np
 import pytest
 
-from oisat_tpu.datamodel import satellite_amf
-from oisat_tpu.regridder import F16_SAFE_MAX, fits_f16, regrid_granule
+from oisat.datamodel import satellite_amf
+from oisat.regridder import F16_SAFE_MAX, fits_f16, regrid_granule
 from tests.test_pipeline import ctm_grid, synthetic_ctm
 
 
@@ -93,7 +93,7 @@ def test_omps_amf_recal_f16_default_end_to_end(monkeypatch):
     """Full OMPS chain under production defaults: regrid -> amf_recal must
     produce a real analysis input (finite ctm_vcd / new_amf), matching the
     full-precision path (reference amf_recal.py:93-119)."""
-    from oisat_tpu.obs_operators import amf_recal
+    from oisat.obs_operators import amf_recal
 
     ctm = synthetic_ctm()
     outs = {}
@@ -144,7 +144,7 @@ def test_amf_sensor_f16_default_close_to_full(monkeypatch, trop):
     """OMI-HCHO-like (tropopause) and TEMPO-like (no tropopause granule
     here) chains: production f16 stays within quantization (~1e-2) of the
     full-precision path, and loses no coverage."""
-    from oisat_tpu.obs_operators import amf_recal
+    from oisat.obs_operators import amf_recal
 
     ctm = synthetic_ctm()
     outs = {}
@@ -170,7 +170,7 @@ def test_fused_inputs_stack_lv_range_guard(monkeypatch):
     pressure quirk) at f32 while still narrowing in-range stacks."""
     from types import SimpleNamespace
 
-    from oisat_tpu.driver import oisatgmi
+    from oisat.driver import oisatgmi
 
     _production_f16(monkeypatch)
     ctm = synthetic_ctm()
@@ -195,8 +195,8 @@ def test_staged_amf_recal_eta_matches_full(monkeypatch):
     deduplicated CTM slices) must reproduce the full-stack batch."""
     import copy
 
-    import oisat_tpu.obs_operators as oo
-    import oisat_tpu.regridder as R
+    import oisat.obs_operators as oo
+    import oisat.regridder as R
     from tests.test_fused_month import _eta_granules
 
     _full_precision(monkeypatch)
@@ -303,7 +303,7 @@ def test_opt_2d_narrowing_policy(monkeypatch):
     """MOPITT: vcd/aprior_column narrow (reference reader.py:1165, :1179)
     but x_col and uncertainty are f32 in the reference and must not
     quantize; GOSAT stores every 2-D field f32 — nothing narrows."""
-    from oisat_tpu.datamodel import satellite_opt
+    from oisat.datamodel import satellite_opt
 
     def mopitt_like(seed=2, ny=50, nx=40, nz=5):
         rng = np.random.default_rng(seed)
@@ -349,8 +349,8 @@ def test_pmid_tables_provenance_skips_fit(monkeypatch):
     regrid identically to the per-orbit affine fit it replaces — including
     the b==0 fixed-table case — and a stack edited AFTER tagging must be
     caught by the spot-check and fall back to the full fit."""
-    from oisat_tpu.readers.sensors.common import attach_pmid_tables, eta_mid_tables
-    from oisat_tpu import regridder
+    from oisat.readers.sensors.common import attach_pmid_tables, eta_mid_tables
+    from oisat import regridder
 
     edges_a = np.linspace(0.0, 120.0, 7)
     edges_b = np.linspace(1.0, 0.05, 7)
@@ -414,7 +414,7 @@ def test_affine_from_tables_catches_localized_edits():
     localized post-construction scrub (a handful of pixels rescaled, or a
     sub-swath re-masked on one level) would slip through a strided
     spot-check and silently regrid with reconstructed pressures."""
-    from oisat_tpu.regridder import _affine_from_tables
+    from oisat.regridder import _affine_from_tables
 
     L, H, W = 6, 30, 8
     A = np.linspace(0.0, 120.0, L)
@@ -443,7 +443,7 @@ def test_opt_3d_narrowing_policy(monkeypatch):
     profile is full-precision; GOSAT stores AKs/pressure weights/apriori
     profiles/pressures ALL full-precision — a ~1900 ppb CH4 apriori at
     f16 (spacing 1.0) would corrupt ~10 ppb xcol-pair innovations."""
-    from oisat_tpu.datamodel import satellite_opt
+    from oisat.datamodel import satellite_opt
 
     def gosat_like(seed=4, ny=48, nx=36, nz=5):
         rng = np.random.default_rng(seed)

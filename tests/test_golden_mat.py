@@ -17,8 +17,8 @@ import os
 import numpy as np
 import pytest
 
-from oisat_tpu.ops.weights import diag_threshold, fine_grid
-from oisat_tpu.regridder import make_upscaler, regrid_granule
+from oisat.ops.weights import diag_threshold, fine_grid
+from oisat.regridder import make_upscaler, regrid_granule
 
 MAT = "/root/reference/run/out_omps_upscale.mat"
 
@@ -73,7 +73,7 @@ def test_upscaler_grid_choice_matches_golden():
 
 def _omps_orbit(seed=0, ny=160, nx=36):
     """A synthetic OMPS-shaped orbit crossing the fixture domain."""
-    from oisat_tpu.datamodel import satellite_amf
+    from oisat.datamodel import satellite_amf
 
     rng = np.random.default_rng(seed)
     along = np.linspace(22.0, 58.0, ny)[:, None]

@@ -43,7 +43,7 @@ def test_run_month_free_omi(job_env):
     run_job.run_month(ctrl, 2019, 7)
     assert (tmp / "diag" / "NO2_201907.nc").exists()
     assert (tmp / "report" / "OI_report_NO2_201907.pdf").exists()
-    from oisat_tpu.ncwriter import read_diag_nc
+    from oisat.ncwriter import read_diag_nc
 
     fields, tstr = read_diag_nc(tmp / "diag" / "NO2_201907.nc")
     assert tstr.startswith("2019-07")
@@ -67,7 +67,7 @@ def test_run_month_oi_full_control_key(job_env):
     # synthetic FREE month has a near-zero model VCD, so scalar and full
     # both produce ~zero increment — output equality can't distinguish
     # the methods here; solver dispatch can)
-    import oisat_tpu.ops.oi_full as oi_full_mod
+    import oisat.ops.oi_full as oi_full_mod
     calls = []
     real = oi_full_mod.oi_full
 
@@ -79,7 +79,7 @@ def test_run_month_oi_full_control_key(job_env):
     with unittest.mock.patch.object(oi_full_mod, "oi_full", spy):
         run_job.run_month(ctrl, 2019, 7)
     assert calls == [200.0]
-    from oisat_tpu.ncwriter import read_diag_nc
+    from oisat.ncwriter import read_diag_nc
 
     fields, _ = read_diag_nc(tmp / "diag" / "NO2_201907.nc")
     assert np.isfinite(fields["sat_averaged_vcd"]).sum() > 10
@@ -216,7 +216,7 @@ def test_run_month_omi_no2_vs_gmi(tmp_path, monkeypatch):
     write_omi_no2(tmp_path / "sat" / "OMI-Aura_L2-OMNO2_2019m0710.nc")
     monkeypatch.chdir(tmp_path)
     _run_job_module().run_month(ctrl, 2019, 7)
-    from oisat_tpu.ncwriter import read_diag_nc
+    from oisat.ncwriter import read_diag_nc
 
     fields, _ = read_diag_nc(tmp_path / "diag" / "NO2_201907.nc")
     assert np.isfinite(fields["ctm_averaged_vcd_prior"]).sum() > 10
@@ -247,7 +247,7 @@ def test_run_month_mopitt_co_vs_eccoh(tmp_path, monkeypatch):
     write_mopitt(tmp_path / "sat" / "MOP03JM-201907.he5")
     monkeypatch.chdir(tmp_path)
     _run_job_module().run_month(ctrl, 2019, 7)
-    from oisat_tpu.ncwriter import read_diag_nc
+    from oisat.ncwriter import read_diag_nc
 
     fields, _ = read_diag_nc(tmp_path / "diag" / "CO_201907.nc")
     # MOPITT assimilates VCD; ctm_vcd comes from the AK convolution
@@ -273,7 +273,7 @@ def test_run_month_gosat_ch4_vs_eccoh(tmp_path, monkeypatch):
     write_gosat(tmp_path / "sat" / "2010" / "ESACCI-GHG-20100615.nc")
     monkeypatch.chdir(tmp_path)
     _run_job_module().run_month(ctrl, 2010, 6)
-    from oisat_tpu.ncwriter import read_diag_nc
+    from oisat.ncwriter import read_diag_nc
 
     fields, _ = read_diag_nc(tmp_path / "diag" / "CH4_201006.nc")
     assert np.isfinite(fields["aux1"]).sum() > 5  # sat xch4
@@ -313,7 +313,7 @@ def test_run_month_omi_hcho(tmp_path, monkeypatch):
         f.write("lonll: -10.0\nlonur: 10.0\nlatll: 30.0\nlatur: 45.0\ngridsize: 1.0\n")
     monkeypatch.chdir(tmp_path)
     _run_job_module().run_month(ctrl, 2019, 7)
-    from oisat_tpu.ncwriter import read_diag_nc
+    from oisat.ncwriter import read_diag_nc
 
     fields, _ = read_diag_nc(tmp_path / "diag" / "HCHO_201907.nc")
     v = fields["sat_averaged_vcd"]
@@ -350,7 +350,7 @@ def test_run_month_omi_o3(tmp_path, monkeypatch):
         f.write("lonll: -10.0\nlonur: 10.0\nlatll: 30.0\nlatur: 45.0\ngridsize: 1.0\n")
     monkeypatch.chdir(tmp_path)
     _run_job_module().run_month(ctrl, 2019, 7)
-    from oisat_tpu.ncwriter import read_diag_nc
+    from oisat.ncwriter import read_diag_nc
 
     fields, _ = read_diag_nc(tmp_path / "diag" / "O3_201907.nc")
     v = fields["sat_averaged_vcd"]
@@ -371,7 +371,7 @@ def test_run_month_ssmis_pwv(tmp_path, monkeypatch):
     write_ssmis(tmp_path / "sat" / "f16_201001v7.nc")
     monkeypatch.chdir(tmp_path)
     _run_job_module().run_month(ctrl, 2010, 1)
-    from oisat_tpu.ncwriter import read_diag_nc
+    from oisat.ncwriter import read_diag_nc
 
     fields, _ = read_diag_nc(tmp_path / "diag" / "H2O_201001.nc")
     assert np.isfinite(fields["sat_averaged_vcd"]).sum() > 5

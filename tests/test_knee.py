@@ -2,7 +2,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from oisat_tpu.ops.knee import kneedle_index, kneedle_index_np
+from oisat.ops.knee import kneedle_index, kneedle_index_np
 
 
 def curves():
@@ -127,7 +127,7 @@ def test_kneedle_np_guards_unsorted_and_flat_curves():
     skipped); a flat curve returns the fallback without a 0/0 warning."""
     import warnings
 
-    from oisat_tpu.ops.knee import kneedle_index_np
+    from oisat.ops.knee import kneedle_index_np
 
     assert kneedle_index_np(np.array([10.0, 1, 2, 3, 4]),
                             np.array([0.0, 1, 2, 3, 4]), fallback=0) == 0

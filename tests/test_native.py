@@ -3,9 +3,9 @@ import time
 import numpy as np
 import pytest
 
-from oisat_tpu import native
-from oisat_tpu.ops.regrid import apply_plan
-from oisat_tpu.ops.weights import build_plan, build_plan_structured
+from oisat import native
+from oisat.ops.regrid import apply_plan
+from oisat.ops.weights import build_plan, build_plan_structured
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native swath_weights not built")
@@ -153,7 +153,7 @@ def test_speedup_over_delaunay():
 
 def test_regrid_granule_fast_swath():
     from tests.test_pipeline import ctm_grid, synthetic_granule
-    from oisat_tpu.regridder import regrid_granule
+    from oisat.regridder import regrid_granule
 
     def smooth(seed=0):
         g = synthetic_granule(seed, 4)
@@ -173,8 +173,8 @@ def test_regrid_ssmis_fast_matches_parity():
     """SSMIS granules are full regular global grids — the heaviest qhull
     triangulation in the pipeline; the structured fast path (default-on)
     must agree with the Delaunay parity path."""
-    from oisat_tpu.datamodel import satellite_ssmis
-    from oisat_tpu.regridder import regrid_ssmis_granule
+    from oisat.datamodel import satellite_ssmis
+    from oisat.regridder import regrid_ssmis_granule
 
     lat = np.arange(-89.5, 90, 1.0)
     lon = np.arange(-179.5, 180, 1.0)
@@ -197,7 +197,7 @@ def test_regrid_ssmis_fast_matches_parity():
 
 
 def test_upscaler_cache_reuse_and_bound():
-    import oisat_tpu.regridder as R
+    import oisat.regridder as R
 
     R._upscaler_cache.clear()
     src_lon, src_lat = np.meshgrid(np.arange(-10, 10, 0.1), np.arange(30, 45, 0.1))
@@ -215,7 +215,7 @@ def test_native_antimeridian_quads_do_not_claim_local_targets():
     its sliver triangles overlap the swath elsewhere and must NOT be used
     for interpolation (Delaunay is a partition, quad triangles are not) —
     wrapped quads are skipped, local pixels win."""
-    from oisat_tpu.ops.weights import build_plan_structured
+    from oisat.ops.weights import build_plan_structured
 
     lats = np.linspace(0.0, 10.0, 12)
     lon_cols = np.array([-1.0, 1.0, 179.0, -179.0])  # last pair wraps

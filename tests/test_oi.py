@@ -3,7 +3,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from oisat_tpu.ops.oi import oi, regularization_grid
+from oisat.ops.oi import oi, regularization_grid
 from tests.reference_impl import oi_numpy
 
 
@@ -79,12 +79,12 @@ def test_oi_jit_and_grid():
 def test_inf_observation_variance_matches_reference_and_pallas():
     """so=inf (an unusable observation): the reference computes K=0, AK=0
     and KEEPS the cell in the mean-AK curve; the stable product form's
-    inf/inf would have NaN'd it, making the XLA and Pallas curve engines
+    inf/inf would have NaN'd it, making the curve and the chosen fields
     disagree on the knee."""
     import numpy as np
     import jax.numpy as jnp
 
-    from oisat_tpu.ops.oi import ak_curve, oi, regularization_grid
+    from oisat.ops.oi import ak_curve, oi, regularization_grid
 
     sa = np.array([1.0, 2.0])
     so = np.array([1.0, np.inf])
@@ -103,15 +103,13 @@ def test_inf_observation_variance_matches_reference_and_pallas():
 
 
 def test_curve_engines_agree_on_edge_value_cross_product():
-    """The hoisted r/(r+So/Sa) curve (ops/oi.curve_inputs) and the Pallas
-    kernel must reproduce the reference's literal f64 per-factor
-    formulation on the full cross-product of edge values (0, normal, inf,
+    """The hoisted r/(r+So/Sa) curve (ops/oi.curve_inputs) must
+    reproduce the reference's literal f64 per-factor formulation on the full cross-product of edge values (0, normal, inf,
     NaN) for (Sa, So) — the validity hoist claims each case is
     factor-independent; this pins every one of them."""
     import warnings
 
-    from oisat_tpu.ops.kernels.oi_scan import ak_curve_pallas
-    from oisat_tpu.ops.oi import ak_curve, regularization_grid
+    from oisat.ops.oi import ak_curve, regularization_grid
 
     vals = np.array([0.0, 1.5, np.inf, np.nan])
     sa2, so2 = np.meshgrid(vals, vals)
@@ -133,18 +131,10 @@ def test_curve_engines_agree_on_edge_value_cross_product():
     got_xla = np.asarray(ak_curve(jnp.asarray(sa, jnp.float32),
                                   jnp.asarray(so, jnp.float32),
                                   jnp.asarray(regs, jnp.float32)))
-    got_pl = np.asarray(ak_curve_pallas(sa.astype(np.float32),
-                                        so.astype(np.float32),
-                                        regs.astype(np.float32),
-                                        interpret=True))
     np.testing.assert_allclose(got_xla, ref, rtol=2e-6, atol=1e-7)
-    np.testing.assert_allclose(got_pl, ref, rtol=2e-6, atol=1e-7)
 
-    # all-invalid grid -> NaN curve (count 0), both engines
+    # all-invalid grid -> NaN curve (count 0)
     nan_sa = np.full(8, np.nan, np.float32)
     assert np.isnan(np.asarray(ak_curve(jnp.asarray(nan_sa),
                                         jnp.asarray(nan_sa),
                                         jnp.asarray(regs, jnp.float32)))).all()
-    assert np.isnan(np.asarray(ak_curve_pallas(nan_sa, nan_sa,
-                                               regs.astype(np.float32),
-                                               interpret=True))).all()

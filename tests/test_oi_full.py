@@ -2,10 +2,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from oisat_tpu.ops.kernels.covariance import build_covariance, build_covariance_reference
-from oisat_tpu.ops.kernels.oi_scan import ak_curve_pallas
-from oisat_tpu.ops.oi import ak_curve, oi, regularization_grid
-from oisat_tpu.ops.oi_full import oi_full
+from oisat.ops.covariance import build_covariance, build_covariance_reference
+from oisat.ops.oi import oi
+from oisat.ops.oi_full import oi_full
 
 
 def test_covariance_matches_reference():
@@ -15,38 +14,11 @@ def test_covariance_matches_reference():
     lon = rng.uniform(-130, -60, n)
     sig = np.abs(rng.normal(1.5, 0.3, n))
     ref = build_covariance_reference(lat, lon, sig, 300.0)
-    got = np.asarray(build_covariance(lat, lon, sig, 300.0, tile=128))
+    got = np.asarray(build_covariance(lat, lon, sig, 300.0))
     np.testing.assert_allclose(got, ref, rtol=2e-4, atol=1e-6)
     # symmetric with sigma^2 on the diagonal
     np.testing.assert_allclose(got, got.T, rtol=0, atol=1e-6)
     np.testing.assert_allclose(np.diag(got), sig**2, rtol=2e-6)
-
-
-def test_pallas_curve_matches_xla():
-    rng = np.random.default_rng(1)
-    n = 40_000
-    sa = np.abs(rng.normal(2, 1, n))
-    so = np.abs(rng.normal(1, 0.5, n))
-    sa[rng.random(n) < 0.2] = np.nan
-    sa[rng.random(n) < 0.03] = 0.0
-    regs = regularization_grid().astype(np.float32)
-    ref = np.asarray(ak_curve(jnp.asarray(sa, jnp.float32), jnp.asarray(so, jnp.float32),
-                              jnp.asarray(regs)))
-    got = np.asarray(ak_curve_pallas(sa, so, regs))
-    np.testing.assert_allclose(got, ref, rtol=1e-5)
-
-
-def test_oi_curve_impl_equivalence():
-    rng = np.random.default_rng(2)
-    shape = (64, 128)
-    xa = np.abs(rng.normal(3, 1, shape)).astype(np.float32)
-    y = (xa * 1.2).astype(np.float32)
-    sa = ((xa * 0.5) ** 2).astype(np.float32)
-    so = np.full(shape, 0.2, np.float32)
-    r1 = oi(jnp.asarray(xa), jnp.asarray(y), jnp.asarray(sa), jnp.asarray(so), curve_impl="xla")
-    r2 = oi(jnp.asarray(xa), jnp.asarray(y), jnp.asarray(sa), jnp.asarray(so), curve_impl="pallas")
-    assert int(r1.reg_index) == int(r2.reg_index)
-    np.testing.assert_allclose(np.asarray(r1.xb), np.asarray(r2.xb), rtol=1e-6)
 
 
 def test_oi_full_zero_length_matches_diagonal():
@@ -152,7 +124,7 @@ def test_matfree_matches_dense():
     """The matrix-free CG + colored-probing path must reproduce the dense
     blocked-Cholesky solve (VERDICT r1 item 6): xb to CG tolerance, the
     posterior diagonal to the probing cross-term bound."""
-    from oisat_tpu.ops.oi_full import oi_full_dense, oi_full_matfree
+    from oisat.ops.oi_full import oi_full_dense, oi_full_matfree
 
     H, W = 16, 16  # 256 cells: dense is exact ground truth here
     xa, y, sigb, sigo, lat, lon = _random_domain(H, W)
@@ -181,7 +153,7 @@ def test_oi_full_auto_switches_to_matfree(monkeypatch):
     """Above DENSE_MAX_CELLS the grid front end must route to the
     matrix-free branch and produce the same analysis (NaN handling and
     scatter-back included)."""
-    import oisat_tpu.ops.oi_full as mod
+    import oisat.ops.oi_full as mod
 
     H, W = 20, 26
     xa, y, sigb, sigo, lat, lon = _random_domain(H, W, seed=9)
@@ -201,7 +173,7 @@ def test_oi_full_matfree_with_regularization(monkeypatch):
     """The large branch with the regularization scan: the knee is picked on
     a dense subsample (here the subsample covers the whole domain, so the
     choice is exact) and the chosen factor scales B in the CG solve."""
-    import oisat_tpu.ops.oi_full as mod
+    import oisat.ops.oi_full as mod
 
     H, W = 16, 16
     xa, y, sigb, sigo, lat, lon = _random_domain(H, W, seed=13)
@@ -223,9 +195,9 @@ def test_oi_full_matfree_with_regularization(monkeypatch):
 def test_regularized_midsize_routes_matrix_free(monkeypatch):
     """Between DENSE_SCAN_MAX_CELLS and DENSE_MAX_CELLS the REGULARIZED
     solve must take the matrix-free branch: the dense 99-factor eigen
-    scan's eigh workspace OOMs the 16 GB v5e near n ~ 9.7k (measured,
-    bench --month-full), well under the Cholesky-only dense limit."""
-    import oisat_tpu.ops.oi_full as mod
+    scan holds several N^2 eigh workspaces, so its limit sits under the
+    Cholesky-only dense limit."""
+    import oisat.ops.oi_full as mod
 
     H, W = 16, 16
     xa, y, sigb, sigo, lat, lon = _random_domain(H, W, seed=21)
@@ -247,8 +219,8 @@ def test_regularized_midsize_routes_matrix_free(monkeypatch):
 
 
 def test_distance_coloring_separation():
-    from oisat_tpu.ops.kernels.covariance import EARTH_RADIUS_KM
-    from oisat_tpu.ops.oi_full import _distance_coloring
+    from oisat.ops.covariance import EARTH_RADIUS_KM
+    from oisat.ops.oi_full import _distance_coloring
 
     rng = np.random.default_rng(17)
     lat = rng.uniform(30, 50, 500)
@@ -281,7 +253,7 @@ def test_matfree_polar_crowding_no_negative_variance():
     Uncapped chunked coloring + cluster representatives must keep the
     posterior variance physical (0 <= Sb <= Bd, i.e. 0 <= AK <= 1) instead
     of collapsing err to 0 / AK > 1."""
-    from oisat_tpu.ops.oi_full import oi_full_matfree
+    from oisat.ops.oi_full import oi_full_matfree
 
     lat1 = np.arange(76.5, 90.0, 1.0)
     lon1 = np.arange(-179.0, 180.0, 2.0)
@@ -312,9 +284,9 @@ def test_slq_curve_matches_dense_scan():
     curve on a small domain, and pick the same knee."""
     import jax.numpy as jnp
 
-    from oisat_tpu.ops.knee import kneedle_index_np
-    from oisat_tpu.ops.oi import regularization_grid
-    from oisat_tpu.ops.oi_full import mean_ak_curve_slq, oi_full_dense_scan
+    from oisat.ops.knee import kneedle_index_np
+    from oisat.ops.oi import regularization_grid
+    from oisat.ops.oi_full import mean_ak_curve_slq, oi_full_dense_scan
 
     H, W = 16, 16
     xa, y, sigb, sigo, lat, lon = _random_domain(H, W, seed=5)
@@ -390,7 +362,7 @@ def test_matfree_nystrom_tight_obs_converges():
     must deliver (a) a small reported residual, (b) a near-exact
     averaging kernel, and (c) increments at the f32 matvec noise floor
     (a few percent RMS), all validated against the f64 dense solve."""
-    from oisat_tpu.ops.oi_full import oi_full_matfree
+    from oisat.ops.oi_full import oi_full_matfree
 
     H, W = 16, 32
     rng = np.random.default_rng(5)
@@ -437,7 +409,7 @@ def test_matfree_nystrom_tight_obs_converges():
 
 def test_matfree_nystrom_auto_threshold():
     """auto picks Nystrom at NYSTROM_MIN_CELLS and Jacobi below."""
-    import oisat_tpu.ops.oi_full as mod
+    import oisat.ops.oi_full as mod
 
     H, W = 8, 16
     xa, y, sigb, sigo, lat, lon = _random_domain(H, W, seed=3)
@@ -460,7 +432,7 @@ def test_matfree_nystrom_cholesky_fallback(monkeypatch):
     same posterior diagonal (same S^1/2 up to an orthogonal factor, which
     the row-norm diagonal cannot see) instead of crashing the month."""
     import scipy.linalg
-    from oisat_tpu.ops.oi_full import oi_full_matfree
+    from oisat.ops.oi_full import oi_full_matfree
 
     H, W = 8, 16
     xa, y, sigb, sigo, lat, lon = _random_domain(H, W, seed=7)
@@ -493,7 +465,7 @@ def test_matfree_refinement_beats_f32_representation_wall():
     iterative refinement (f64 host residual + f32 device correction
     solves) contracts ~10x per pass; two passes must land well under 1%
     and the reported residual must be the TRUE-operator f64 residual."""
-    from oisat_tpu.ops.oi_full import oi_full_matfree
+    from oisat.ops.oi_full import oi_full_matfree
 
     H, W = 16, 32
     rng = np.random.default_rng(5)
@@ -534,7 +506,7 @@ def test_matfree_direct_f64_exact_at_production_size():
     to the host f64 direct factor: increments must match the dense f64
     reference at the f64 backward-error floor even at the extreme
     monthly-average conditioning where every f32 iterative path stalls."""
-    from oisat_tpu.ops.oi_full import oi_full_matfree
+    from oisat.ops.oi_full import oi_full_matfree
 
     H, W = 16, 32
     rng = np.random.default_rng(5)
@@ -566,7 +538,7 @@ def test_matfree_direct_host_fallback_exact(monkeypatch):
     """OISAT_EXACT_DEVICE=0 (and any device-exact failure) falls back to
     the host f64 direct solve, which must now also deliver the EXACT
     posterior diagonal/AK from its own factor (dtrtri route)."""
-    from oisat_tpu.ops.oi_full import oi_full_matfree
+    from oisat.ops.oi_full import oi_full_matfree
 
     H, W = 16, 32
     rng = np.random.default_rng(5)
@@ -602,7 +574,7 @@ def test_matfree_device_exact_gate_falls_back(monkeypatch):
     """A device exact tail that fails the host-f64 row-sampled residual
     gate must be DISCARDED in favor of the host direct solve (the
     VERDICT-mandated acceptance bar for emulated-f64 precision)."""
-    import oisat_tpu.ops.oi_full as mod
+    import oisat.ops.oi_full as mod
 
     H, W = 16, 32
     rng = np.random.default_rng(5)
@@ -629,7 +601,7 @@ def test_dense_path_exact_recompute_at_tight_conditioning():
     sb/so ~ 300 the grid front end must re-solve the innovation exactly in
     host f64 (conditioning-gated) so small production months match the f64
     reference too."""
-    from oisat_tpu.ops.oi_full import oi_full
+    from oisat.ops.oi_full import oi_full
 
     H, W = 8, 16  # 128 cells: dense path
     rng = np.random.default_rng(5)
@@ -675,7 +647,7 @@ def test_matfree_info_scaled_to_physical_units(monkeypatch):
     units (they are field-scaled quantities, like xb/increment/err); the
     relative cg_resid stays scale-invariant.  Pinned with a stub so the
     contract is tested without a >10k-cell matfree solve."""
-    import oisat_tpu.ops.oi_full as mod
+    import oisat.ops.oi_full as mod
 
     H, W = 8, 16
     xa, y, sigb, sigo, lat2, lon2 = _random_domain(H, W, seed=9)
@@ -710,7 +682,7 @@ def test_exact_sb_diag_blended_forms_stable_under_emulation_noise():
     error.  diag(Sb) = so2 - so4*diag(A^-1) amplifies that by (so/sb)^2
     on loose cells; the blended form must switch to bd - q there and stay
     ~eps-accurate in BOTH regimes (review finding, round 5)."""
-    from oisat_tpu.ops.oi_full import _exact_sb_diag
+    from oisat.ops.oi_full import _exact_sb_diag
 
     rng = np.random.default_rng(3)
     n = 512
@@ -745,7 +717,7 @@ def test_matfree_exact_diag_mixed_noise_regimes(device_exact, monkeypatch):
     (diag(B A^-1 B)) on BOTH exact-tail paths: a month mixing tight
     (so << sb) and loose (so >> sb) cells must match the dense f64 golden
     on every cell — a wrong q would corrupt the loose cells outright."""
-    from oisat_tpu.ops.oi_full import oi_full_matfree
+    from oisat.ops.oi_full import oi_full_matfree
 
     monkeypatch.setenv("OISAT_EXACT_DEVICE", "1" if device_exact else "0")
     H, W = 16, 32
@@ -784,7 +756,7 @@ def test_exact_tail_prog_multiblock_matches_numpy():
     run at a few hundred cells and never leave block 0."""
     import jax
 
-    from oisat_tpu.ops import oi_full as M
+    from oisat.ops import oi_full as M
 
     n = 4096  # two 2048 blocks
     rng = np.random.default_rng(21)
@@ -814,3 +786,70 @@ def test_exact_tail_prog_multiblock_matches_numpy():
     np.testing.assert_allclose(dainv, np.diag(np.linalg.inv(A)), rtol=1e-6)
     np.testing.assert_allclose(q, np.einsum("ij,ji->i", B, AinvB),
                                rtol=1e-6, atol=1e-12)
+
+
+def test_covariance_any_n_matches_reference():
+    """The builder takes any N (no tile-multiple rule): N = 300 is not a
+    multiple of 128."""
+    rng = np.random.default_rng(8)
+    n = 300
+    lat = rng.uniform(-60, 60, n)
+    lon = rng.uniform(-180, 180, n)
+    sig = np.abs(rng.normal(1.0, 0.3, n))
+    sig[-7:] = 0.0  # padding cells decouple
+    got = np.asarray(build_covariance(lat, lon, sig, 500.0))
+    assert got.shape == (n, n)
+    np.testing.assert_allclose(got, build_covariance_reference(lat, lon, sig, 500.0),
+                               rtol=2e-4, atol=1e-6)
+    np.testing.assert_array_equal(got, got.T)
+    assert not got[-7:].any() and not got[:, -7:].any()
+
+
+def _tail_inputs(n=100, seed=9):
+    from oisat.ops.oi_full import _sphere_points
+
+    rng = np.random.default_rng(seed)
+    u3 = _sphere_points(rng.uniform(30, 40, n), rng.uniform(-10, 0, n))
+    sb = np.abs(rng.normal(1.0, 0.1, n))
+    return u3, sb, (sb / 50.0) ** 2, rng.normal(0, 1, n), (6371.0 / 300.0) ** 2
+
+
+def test_exact_tail_device_reraises_divisibility_guard(monkeypatch):
+    """A bucket that the diagonal block does not divide is a programming
+    error: the device tail raises it instead of quietly solving on host."""
+    from functools import partial
+
+    import oisat.ops.oi_full as mod
+
+    monkeypatch.setattr(mod, "EXACT_TAIL_BUCKET", 100)
+    monkeypatch.setattr(mod, "_exact_tail_prog",
+                        partial(mod._exact_tail_prog, diag_block=64))
+    with pytest.raises(ValueError, match="must be a multiple"):
+        mod._exact_tail_device(*_tail_inputs())
+
+
+def test_exact_tail_device_oom_falls_back_to_host(monkeypatch, capsys):
+    import jax
+
+    import oisat.ops.oi_full as mod
+
+    def oom(*a, **k):
+        raise jax.errors.JaxRuntimeError(
+            "RESOURCE_EXHAUSTED: Out of memory while trying to allocate")
+
+    monkeypatch.setattr(mod, "_exact_tail_prog", oom)
+    assert mod._exact_tail_device(*_tail_inputs()) == (None, None)
+    assert "out of memory" in capsys.readouterr().out
+
+
+def test_exact_tail_device_other_runtime_errors_propagate(monkeypatch):
+    import jax
+
+    import oisat.ops.oi_full as mod
+
+    def broken(*a, **k):
+        raise jax.errors.JaxRuntimeError("INTERNAL: cuSolver failed")
+
+    monkeypatch.setattr(mod, "_exact_tail_prog", broken)
+    with pytest.raises(jax.errors.JaxRuntimeError, match="INTERNAL"):
+        mod._exact_tail_device(*_tail_inputs())

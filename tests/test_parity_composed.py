@@ -5,9 +5,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from oisat_tpu.obs_operators import amf_recal
-from oisat_tpu.ops.vertical import partial_column
-from oisat_tpu.regridder import regrid_granule
+from oisat.obs_operators import amf_recal
+from oisat.ops.vertical import partial_column
+from oisat.regridder import regrid_granule
 from tests.reference_impl import amf_recal_pixelwise, interpolator_amf_scipy, upscaler_scipy
 from tests.test_pipeline import ctm_grid, synthetic_ctm, synthetic_granule
 
@@ -80,7 +80,7 @@ def test_amf_recal_upscale_branch(monkeypatch):
 def _eccoh_like_ctm(H, W, nz=20, seed=8):
     import datetime
 
-    from oisat_tpu.datamodel import ctm_model
+    from oisat.datamodel import ctm_model
 
     rng = np.random.default_rng(seed)
     pmid = np.sort(rng.uniform(60, 1000, (nz, H, W)), axis=0)[::-1].copy().astype("float32")
@@ -95,9 +95,9 @@ def test_ak_conv_mopitt_batched_orchestration(monkeypatch):
     monkeypatch.setenv("OISAT_F16_TRANSFER", "0")  # parity-tight vs f64 golden
     import datetime
 
-    from oisat_tpu.datamodel import satellite_opt
-    from oisat_tpu.obs_operators import ak_conv_mopitt
-    from oisat_tpu.ops.vertical import air_partial_column, partial_column
+    from oisat.datamodel import satellite_opt
+    from oisat.obs_operators import ak_conv_mopitt
+    from oisat.ops.vertical import air_partial_column, partial_column
     from tests.reference_impl import ak_conv_mopitt_pixelwise
     import jax.numpy as jnp
 
@@ -142,8 +142,8 @@ def test_ak_conv_gosat_batched_orchestration(monkeypatch):
     monkeypatch.setenv("OISAT_F16_TRANSFER", "0")  # parity-tight vs f64 golden
     import datetime
 
-    from oisat_tpu.datamodel import satellite_opt
-    from oisat_tpu.obs_operators import ak_conv_gosat
+    from oisat.datamodel import satellite_opt
+    from oisat.obs_operators import ak_conv_gosat
     from tests.reference_impl import ak_conv_gosat_pixelwise
 
     H, W, Ls = 10, 11, 20
@@ -184,7 +184,7 @@ def test_amf_recal_compressed_ctm_matches_pixelwise_golden(monkeypatch):
     monkeypatch.setenv("OISAT_F16_TRANSFER", "0")
     import datetime
 
-    from oisat_tpu.datamodel import ctm_model
+    from oisat.datamodel import ctm_model
 
     clon, clat = ctm_grid()
     H, W = clat.shape
@@ -237,7 +237,7 @@ def test_amf_recal_upscale_affine_carrier_matches_per_level(monkeypatch):
     import dataclasses
     import datetime
 
-    from oisat_tpu.datamodel import ctm_model
+    from oisat.datamodel import ctm_model
 
     clon, clat = ctm_grid()
     H, W = clat.shape
@@ -293,7 +293,7 @@ def _eta_ecoh_ctm(H, W, Lc=12, seed=6):
     layouts engage on it."""
     import datetime
 
-    from oisat_tpu.datamodel import ctm_model
+    from oisat.datamodel import ctm_model
 
     rng = np.random.default_rng(seed)
     a = np.concatenate([[0.0], np.linspace(40.0, 600.0, Lc - 1)])
@@ -316,9 +316,9 @@ def test_ak_conv_mopitt_compressed_matches_pixelwise_golden(monkeypatch):
     monkeypatch.setenv("OISAT_F16_TRANSFER", "0")
     import datetime
 
-    from oisat_tpu.datamodel import satellite_opt
-    from oisat_tpu.obs_operators import ak_conv_mopitt
-    from oisat_tpu.ops.vertical import air_partial_column
+    from oisat.datamodel import satellite_opt
+    from oisat.obs_operators import ak_conv_mopitt
+    from oisat.ops.vertical import air_partial_column
     from tests.reference_impl import ak_conv_mopitt_pixelwise
 
     H, W, Ls = 12, 14, 9
@@ -361,8 +361,8 @@ def test_ak_conv_gosat_compressed_matches_pixelwise_golden(monkeypatch):
     monkeypatch.setenv("OISAT_F16_TRANSFER", "0")
     import datetime
 
-    from oisat_tpu.datamodel import satellite_opt
-    from oisat_tpu.obs_operators import ak_conv_gosat
+    from oisat.datamodel import satellite_opt
+    from oisat.obs_operators import ak_conv_gosat
     from tests.reference_impl import ak_conv_gosat_pixelwise
 
     H, W, Ls = 12, 14, 6

@@ -5,12 +5,12 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 
-from oisat_tpu.datamodel import ctm_model, satellite_amf
-from oisat_tpu.driver import oisatgmi
-from oisat_tpu.ncwriter import read_diag_nc
-from oisat_tpu.ops.averaging import averaging, monthly_stats
-from oisat_tpu.readers.ctm import free_ctm
-from oisat_tpu.regridder import regrid_granule
+from oisat.datamodel import ctm_model, satellite_amf
+from oisat.driver import oisatgmi
+from oisat.ncwriter import read_diag_nc
+from oisat.ops.averaging import averaging, monthly_stats
+from oisat.readers.ctm import free_ctm
+from oisat.regridder import regrid_granule
 from tests.reference_impl import error_average_numpy
 
 import jax.numpy as jnp
@@ -159,7 +159,7 @@ def test_driver_full_covariance_oi():
 
 
 def test_innovation_diagnostics():
-    from oisat_tpu.ops.diagnostics import innovation_stats
+    from oisat.ops.diagnostics import innovation_stats
 
     rng = np.random.default_rng(12)
     H, W = 40, 50

@@ -11,8 +11,8 @@ from types import SimpleNamespace
 
 import numpy as np
 
-from oisat_tpu.driver import oisatgmi
-from oisat_tpu.regridder import regrid_granule
+from oisat.driver import oisatgmi
+from oisat.regridder import regrid_granule
 from tests.test_pipeline import ctm_grid, synthetic_ctm, synthetic_granule
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "month_no2.npz")

@@ -5,9 +5,9 @@ from scipy.interpolate import LinearNDInterpolator, NearestNDInterpolator, RBFIn
 from scipy.signal import convolve2d
 from scipy.spatial import cKDTree
 
-from oisat_tpu.ops.regrid import apply_plan, boxfilter_same_symm
-from oisat_tpu.ops.weights import build_plan, fine_grid
-from oisat_tpu.regridder import make_upscaler
+from oisat.ops.regrid import apply_plan, boxfilter_same_symm
+from oisat.ops.weights import build_plan, fine_grid
+from oisat.regridder import make_upscaler
 
 
 def swath(seed=0, n=400, nan_frac=0.1):
@@ -161,8 +161,8 @@ def test_rbf_duplicate_pixels_masked_not_garbage():
     check must mask those targets so finite garbage never enters a map."""
     import numpy as np
 
-    from oisat_tpu.ops.regrid import apply_plan
-    from oisat_tpu.ops.weights import build_plan
+    from oisat.ops.regrid import apply_plan
+    from oisat.ops.weights import build_plan
 
     rng = np.random.default_rng(0)
     n = 40
@@ -186,7 +186,7 @@ def test_rbf_collinear_swath_skips_granule():
     skip-the-granule contract) instead of raising LinAlgError."""
     import numpy as np
 
-    from oisat_tpu.ops.weights import build_plan
+    from oisat.ops.weights import build_plan
 
     lon = np.linspace(-5, 5, 30)
     lat = np.zeros(30)  # perfectly collinear
@@ -197,7 +197,7 @@ def test_rbf_collinear_swath_skips_granule():
 def test_structured_builder_rejects_mismatched_lat():
     import numpy as np
 
-    from oisat_tpu.ops.weights import build_plan_structured
+    from oisat.ops.weights import build_plan_structured
 
     lon = np.ones((4, 5))
     lat = np.ones((5, 4))  # transposed: documented None fallback
@@ -208,7 +208,7 @@ def test_structured_builder_rejects_mismatched_lat():
 def test_pad_to_bucket_grid():
     """Bucket policy: pow2 default unchanged; sub-octave grid is monotonic,
     never below the data, aligned, and tighter than pow2."""
-    from oisat_tpu.ops.regrid import pad_to_bucket
+    from oisat.ops.regrid import pad_to_bucket
 
     # default = the historical power-of-two grid
     assert pad_to_bucket(1) == 1024
@@ -241,8 +241,8 @@ def test_pixel_bucket_escalation(monkeypatch):
     in the same region escalate to the coarse 4-step bucket so a
     variable-scan sensor (TEMPO truncated hours) compiles at most 2 regrid
     programs per region instead of 8 per octave."""
-    from oisat_tpu import regridder
-    from oisat_tpu.ops.regrid import pad_to_bucket
+    from oisat import regridder
+    from oisat.ops.regrid import pad_to_bucket
 
     monkeypatch.setattr(regridder, "_pixel_bucket_first", {})
     n1 = 98640  # OMI 1644x60

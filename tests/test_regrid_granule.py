@@ -1,8 +1,8 @@
 import numpy as np
 import pytest
 
-from oisat_tpu.datamodel import satellite_amf, satellite_opt
-from oisat_tpu.regridder import regrid_granule
+from oisat.datamodel import satellite_amf, satellite_opt
+from oisat.regridder import regrid_granule
 
 
 def synthetic_amf_granule(seed=0, ny=60, nx=40, nz=5):
@@ -110,8 +110,8 @@ def test_fleet_map_lazy_pipeline_order_and_faults():
     per-file fault tolerance intact, and values match the eager path."""
     import numpy as np
 
-    from oisat_tpu.readers.sensors.common import fleet_map
-    from oisat_tpu.regridder import regrid_granule
+    from oisat.readers.sensors.common import fleet_map
+    from oisat.regridder import regrid_granule
     from tests.test_pipeline import ctm_grid, synthetic_granule
 
     clon, clat = ctm_grid()
@@ -143,8 +143,8 @@ def test_affine_pressure_stack_fast_path_matches_full():
 
     import numpy as np
 
-    import oisat_tpu.regridder as R
-    from oisat_tpu.datamodel import satellite_amf
+    import oisat.regridder as R
+    from oisat.datamodel import satellite_amf
     from tests.test_pipeline import ctm_grid, synthetic_granule
 
     clon, clat = ctm_grid()
@@ -191,7 +191,7 @@ def test_affine_stack_properties():
     and tiny stacks."""
     import numpy as np
 
-    from oisat_tpu.regridder import _affine_stack
+    from oisat.regridder import _affine_stack
 
     rng = np.random.default_rng(123)
     for trial in range(20):
@@ -231,8 +231,8 @@ def test_affine_stack_properties():
 
 def test_compact_plan_exact_and_threshold():
     """compact_plan is an exact (bitwise) rewrite of the sparse map."""
-    from oisat_tpu.ops.regrid import apply_plan
-    from oisat_tpu.ops.weights import build_plan, compact_plan
+    from oisat.ops.regrid import apply_plan
+    from oisat.ops.weights import build_plan, compact_plan
 
     rng = np.random.default_rng(7)
     # dense scattered pixels over a small window: a coarse target grid
@@ -297,7 +297,7 @@ def synthetic_opt_granule(seed=0, ny=60, nx=40, nz=6):
 def test_regrid_opt_granule_compaction_bitwise(monkeypatch):
     """The gather-first assembly is bitwise identical to the full-width
     mask+stack path for the satellite_opt field routes too."""
-    import oisat_tpu.regridder as R
+    import oisat.regridder as R
 
     clon, clat = ctm_grid()
 
@@ -323,7 +323,7 @@ def test_regrid_opt_granule_size1_broadcast(monkeypatch):
     guards) broadcast on the compacted gather path exactly like the
     full-width branch's `field * mask` multiply."""
     import dataclasses
-    import oisat_tpu.regridder as R
+    import oisat.regridder as R
 
     clon, clat = ctm_grid()
 
@@ -352,7 +352,7 @@ def test_regrid_granule_compaction_bitwise(monkeypatch):
     """The production regrid path is bitwise identical with the pixel
     compaction disabled (it gathers the same values for the same
     weights)."""
-    import oisat_tpu.regridder as R
+    import oisat.regridder as R
 
     clon, clat = ctm_grid()
 

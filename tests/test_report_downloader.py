@@ -3,8 +3,8 @@ import os
 import numpy as np
 import pytest
 
-from oisat_tpu.downloader import downloader, _setup_netrc
-from oisat_tpu.report import report
+from oisat.downloader import downloader, _setup_netrc
+from oisat.report import report
 
 
 def test_report_pdf(tmp_path):
@@ -103,7 +103,7 @@ def test_gesdisc_subset_flow(monkeypatch, tmp_path):
             return fake_get(url)
 
     monkeypatch.setattr(requests, "Session", lambda: FakeSession())
-    from oisat_tpu.downloader import downloader
+    from oisat.downloader import downloader
 
     d = downloader(20, 60, -135, -55, "2019-07-01", "2019-07-31")
     urls = d.download_tropomi_l2("NO2", tmp_path, dry_run=True)
@@ -121,7 +121,7 @@ def test_fetch_resume_with_local_server(tmp_path):
     import http.server
     import threading
 
-    from oisat_tpu.downloader import _fetch
+    from oisat.downloader import _fetch
 
     src = tmp_path / "srv"
     src.mkdir()
@@ -160,7 +160,7 @@ def test_fetch_honours_content_disposition(tmp_path):
     import http.server
     import threading
 
-    from oisat_tpu.downloader import _fetch
+    from oisat.downloader import _fetch
 
     class Handler(http.server.BaseHTTPRequestHandler):
         def do_GET(self):
@@ -193,7 +193,7 @@ def test_read_diag_roundtrip_keeps_global_attrs(tmp_path):
     round-trips the persisted OI diagnostics (the readjust_OI path)."""
     import numpy as np
 
-    from oisat_tpu.ncwriter import read_diag_nc, write_diag_nc
+    from oisat.ncwriter import read_diag_nc, write_diag_nc
 
     f = {"a": np.ones((4, 5)), "lat": np.ones((4, 5)), "lon": np.ones((4, 5))}
     p1 = tmp_path / "d.nc"
@@ -218,8 +218,8 @@ def test_coastlines_drawn_when_edge_crosses_small_domain():
     import matplotlib.pyplot as plt
     import numpy as np
 
-    import oisat_tpu.data as data
-    from oisat_tpu.report import draw_coastlines
+    import oisat.data as data
+    from oisat.report import draw_coastlines
 
     seg = np.array([[-10.0, 0.0], [10.0, 0.0]])  # one long horizontal edge
     orig = data.coastline_segments
@@ -239,7 +239,7 @@ def test_tempo_dry_run_offline(tmp_path, monkeypatch):
     """VERDICT r3 item 5b: the TEMPO route is exercisable without
     earthaccess or network — a stub module drives search + dry_run listing
     and the download call path."""
-    from oisat_tpu.downloader import downloader
+    from oisat.downloader import downloader
 
     monkeypatch.setenv("HOME", str(tmp_path))  # keep _setup_netrc sandboxed
 
@@ -294,7 +294,7 @@ def test_fetch_complete_file_not_redownloaded_on_range_ignoring_server(tmp_path)
     import http.server
     import threading
 
-    from oisat_tpu.downloader import _fetch
+    from oisat.downloader import _fetch
 
     src = tmp_path / "srv"
     src.mkdir()
@@ -333,7 +333,7 @@ def test_fetch_closes_responses_on_all_paths(tmp_path):
     pooled connection, which a campaign retry loop accumulates."""
     import pytest
 
-    from oisat_tpu.downloader import _fetch
+    from oisat.downloader import _fetch
 
     class FakeResp:
         def __init__(self, status, body=b"", headers=None, explode=False):

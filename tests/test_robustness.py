@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from oisat_tpu.ops.averaging import averaging
-from oisat_tpu.readers.sensors import omi_reader
+from oisat.ops.averaging import averaging
+from oisat.readers.sensors import omi_reader
 from tests.test_sensors import CLAT, CLON, write_omi_no2
 
 
@@ -48,7 +48,7 @@ def test_upscaler_cache_bounded():
     CTM->sat upscaler cache without bound."""
     from types import SimpleNamespace
 
-    from oisat_tpu import obs_operators as oo
+    from oisat import obs_operators as oo
 
     ctm_lon, ctm_lat = np.meshgrid(np.arange(-10.0, 10.0, 2.0),
                                    np.arange(30.0, 50.0, 2.0))

@@ -12,7 +12,7 @@ import pytest
 
 import h5py
 
-from oisat_tpu.readers.sensors import (
+from oisat.readers.sensors import (
     gosat_reader,
     mopitt_reader,
     omi_reader,
@@ -334,8 +334,8 @@ def test_gosat_filler_keeps_placeholders_without_ak():
     must keep the sentinel instead of gridding uninitialized arrays."""
     import datetime
 
-    from oisat_tpu.datamodel import satellite_opt
-    from oisat_tpu.readers.sensors.gosat import filler_gosatxch4
+    from oisat.datamodel import satellite_opt
+    from oisat.readers.sensors.gosat import filler_gosatxch4
 
     rng = np.random.default_rng(0)
     n = 200
@@ -361,7 +361,7 @@ def test_gosat_filler_keeps_placeholders_without_ak():
 def test_tempo_reader_requires_hour():
     import pytest
 
-    from oisat_tpu.readers.sensors.tempo import tempo_reader as tr
+    from oisat.readers.sensors.tempo import tempo_reader as tr
 
     with pytest.raises(ValueError, match="tempo_hour"):
         tr("/nonexistent", None, "TEMPO_NO2", None, None, "202309", True)

@@ -5,8 +5,8 @@ import sys
 import numpy as np
 import h5py
 
-from oisat_tpu.ncwriter import read_diag_nc, write_diag_nc, write_nc
-from oisat_tpu.readers.ncio import read_nc
+from oisat.ncwriter import read_diag_nc, write_diag_nc, write_nc
+from oisat.readers.ncio import read_nc
 
 
 def _load(name):
@@ -266,7 +266,7 @@ def test_readjust_oi_scale_maps_not_stale(tmp_path):
     stale = dict(fields)
     stale["desroziers_sa_scale"] = np.full((H, W), 7.0)
     stale["desroziers_so_scale"] = np.full((H, W), 9.0)
-    from oisat_tpu.ncwriter import write_diag_nc
+    from oisat.ncwriter import write_diag_nc
 
     write_diag_nc(d / "NO2_201907.nc", stale, "2019-07-15 12:00:00")
 

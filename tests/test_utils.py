@@ -3,9 +3,9 @@ import time
 
 import numpy as np
 
-from oisat_tpu.datamodel import satellite_amf, satellite_ssmis
-from oisat_tpu.utils.granule_store import load_granules, save_granules
-from oisat_tpu.utils.profiling import report, reset, stage
+from oisat.datamodel import satellite_amf, satellite_ssmis
+from oisat.utils.granule_store import load_granules, save_granules
+from oisat.utils.profiling import report, reset, stage
 
 
 def test_stage_timing():
@@ -50,7 +50,7 @@ def test_driver_state_roundtrip(tmp_path):
     """average→oi from a checkpoint, no reader involved."""
     import datetime
 
-    from oisat_tpu.driver import oisatgmi
+    from oisat.driver import oisatgmi
 
     rng = np.random.default_rng(0)
     H, W = 10, 12
@@ -82,8 +82,8 @@ def test_granule_store_device_mode_roundtrip(tmp_path, monkeypatch):
     convert on write and the injected bookkeeping attrs are skipped."""
     import numpy as np
 
-    from oisat_tpu.regridder import regrid_granule
-    from oisat_tpu.utils.granule_store import load_granules, save_granules
+    from oisat.regridder import regrid_granule
+    from oisat.utils.granule_store import load_granules, save_granules
     from tests.test_pipeline import ctm_grid, synthetic_granule
 
     clon, clat = ctm_grid()
@@ -106,7 +106,7 @@ def test_compile_census_counts_and_phases():
     import jax
     import jax.numpy as jnp
 
-    from oisat_tpu.utils.compile_census import CompileCensus
+    from oisat.utils.compile_census import CompileCensus
 
     f = jax.jit(lambda x: x * 2.5 + 1.0)
     with CompileCensus() as c:
@@ -133,7 +133,7 @@ def test_compile_census_captures_program_names():
     import jax
     import jax.numpy as jnp
 
-    from oisat_tpu.utils.compile_census import CompileCensus
+    from oisat.utils.compile_census import CompileCensus
 
     def my_distinctive_step(x):
         return x @ x.T + 11.0
@@ -156,10 +156,10 @@ def test_month_step_jit_wrapper_cached_across_makers():
     import numpy as np
 
     import __graft_entry__ as ge
-    from oisat_tpu.parallel import make_mesh
-    from oisat_tpu.parallel.analysis import make_mopitt_month_step
+    from oisat.parallel import make_mesh
+    from oisat.parallel.analysis import make_mopitt_month_step
 
-    from oisat_tpu.utils.compile_census import CompileCensus
+    from oisat.utils.compile_census import CompileCensus
 
     m1 = make_mesh(4)
     m2 = make_mesh(4)

@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import pytest
 from scipy import interpolate as si
 
-from oisat_tpu.ops.vertical import (
+from oisat.ops.vertical import (
     air_partial_column,
     ak_conv_gosat_fields,
     ak_conv_mopitt_fields,

@@ -18,10 +18,10 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from oisat_tpu.ncwriter import read_diag_nc, write_nc  # noqa: E402
+from oisat.ncwriter import read_diag_nc, write_nc  # noqa: E402
 
 GLOBAL_ATTRS = {
-    "Source": "OI-SAT-TPU tool",
+    "Source": "oisat tool",
     "Institution": "NASA GSFC Code 614",
 }
 

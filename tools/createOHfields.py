@@ -19,8 +19,8 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from oisat_tpu.ncwriter import write_nc  # noqa: E402
-from oisat_tpu.readers.ncio import read_nc  # noqa: E402
+from oisat.ncwriter import write_nc  # noqa: E402
+from oisat.readers.ncio import read_nc  # noqa: E402
 
 N_A = 6.02214076e23
 R = 8.314e4  # cm^3 mbar / K / mol
@@ -55,7 +55,7 @@ def create(out_folder, merra2_path, year):
                                          "positive": "down"}),
                 "OH": (("time", "lev", "lat", "lon"), np.asarray(oh)[None], {"units": "molec cm^-3"}),
             },
-            global_attrs={"Source": "OI-SAT-TPU tool",
+            global_attrs={"Source": "oisat tool",
                           "creation_time": _time.strftime("%Y-%m-%d %H:%M:%S", _time.localtime())},
         )
         outputs.append(path)

@@ -23,8 +23,8 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from oisat_tpu.ncwriter import write_nc  # noqa: E402
-from oisat_tpu.readers.ncio import read_nc  # noqa: E402
+from oisat.ncwriter import write_nc  # noqa: E402
+from oisat.readers.ncio import read_nc  # noqa: E402
 
 # reaction groups and weights (reference create_ind_CO_emiss.py:37-44)
 REACTIONS = {
@@ -105,7 +105,7 @@ def build_month(out_folder, merra2_path, sf_dir, year, mm):
             "CO_Indirect": (("time", "lev", "lat", "lon"), np.asarray(var)[None],
                             {"units": "kg m^-2 s^-1"}),
         },
-        global_attrs={"Source": "OI-SAT-TPU tool",
+        global_attrs={"Source": "oisat tool",
                       "creation_time": _time.strftime("%Y-%m-%d %H:%M:%S", _time.localtime())},
     )
     return path

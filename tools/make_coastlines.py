@@ -3,20 +3,20 @@
 The report overlays coastlines on every map panel, like the reference's
 Basemap output (reference oisatgmi/report.py:13-59).  This offline build
 ships only an approximate hand-placed coastline
-(oisat_tpu/data/coastlines_builtin.py); run this tool ONCE on a networked
+(oisat/data/coastlines_builtin.py); run this tool ONCE on a networked
 machine to replace it with public-domain data:
 
     # Natural Earth 110m (or 50m/10m) physical coastline GeoJSON:
     #   https://raw.githubusercontent.com/nvkelso/natural-earth-vector/
     #     master/geojson/ne_110m_coastline.geojson
     python tools/make_coastlines.py ne_110m_coastline.geojson \
-        oisat_tpu/data/coastlines.npz
+        oisat/data/coastlines.npz
 
 Accepted inputs: a GeoJSON FeatureCollection of LineString /
 MultiLineString / Polygon / MultiPolygon features (Natural Earth, GSHHG
 GeoJSON exports, OGR output — any CRS84 lon/lat file).  Output: an npz
 with 1-D float32 ``lon``/``lat`` arrays, NaN-separated between polylines
-(the format oisat_tpu.data.coastline_segments loads; it also honours the
+(the format oisat.data.coastline_segments loads; it also honours the
 ``OISAT_COASTLINES`` env var for out-of-tree paths).
 """
 

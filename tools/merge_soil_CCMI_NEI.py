@@ -27,8 +27,8 @@ from scipy.io import loadmat
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from oisat_tpu.ncwriter import write_nc  # noqa: E402
-from oisat_tpu.readers.ncio import read_nc  # noqa: E402
+from oisat.ncwriter import write_nc  # noqa: E402
+from oisat.readers.ncio import read_nc  # noqa: E402
 
 # GMI species and the matching NEI-2016 species (reference :239-243)
 EMISSION_NAMES_GMI = ["ALD2", "ALK4", "C2H6", "PRPE", "C3H8", "CH2O", "MEK", "CO", "NO"]
@@ -138,7 +138,7 @@ def merger(paths, emis, nei_species, date_i, out_dir="."):
             f"{emis}_ff": (("time", "lat", "lon"), out_ff, {"units": "kg m^-2 s^-1"}),
             f"{emis}_bf": (("time", "lat", "lon"), out_bf, {"units": "kg m^-2 s^-1"}),
         },
-        global_attrs={"Source": "OI-SAT-TPU tool",
+        global_attrs={"Source": "oisat tool",
                       "creation_time": _time.strftime("%Y-%m-%d %H:%M:%S", _time.localtime())},
     )
     return path

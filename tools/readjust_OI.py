@@ -24,8 +24,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import jax.numpy as jnp  # noqa: E402
 
-from oisat_tpu.ncwriter import read_diag_nc, write_diag_nc  # noqa: E402
-from oisat_tpu.ops.oi import oi  # noqa: E402
+from oisat.ncwriter import read_diag_nc, write_diag_nc  # noqa: E402
+from oisat.ops.oi import oi  # noqa: E402
 
 
 def readjust(diag_folder, out_folder, error_ctm=50.0, desroziers_iterations=0,
@@ -44,12 +44,12 @@ def readjust(diag_folder, out_folder, error_ctm=50.0, desroziers_iterations=0,
         nb = int(desroziers_bins)
         bins = None
         if nb > 1:
-            from oisat_tpu.ops.diagnostics import lat_band_index
+            from oisat.ops.diagnostics import lat_band_index
 
             bins = lat_band_index(np.asarray(fields["lat"], np.float64), nb)
         sa_total = so_total = None
         for _ in range(int(desroziers_iterations)):
-            from oisat_tpu.driver import _desroziers_step
+            from oisat.driver import _desroziers_step
 
             sa_step, so_step = _desroziers_step(xa, y_clip, np.asarray(res.xb),
                                                 sa, so, bins, nb)
